@@ -9,7 +9,7 @@ section quotes these numbers):
   - ``native.natsort_pairs`` on numpy U arrays (zero-copy
     ``fc_natsort_pairs_u32``) vs the per-object packing path.
 
-Pure host benchmark — no TPU needed.  Usage::
+Pure host benchmark — no accelerator needed.  Usage::
 
     python benchmarks/export_bench.py [n_rows]      # default 2_000_000
 

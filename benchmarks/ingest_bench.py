@@ -3,7 +3,7 @@
 Measures the C++ scanners (`native/falcon_ingest.cc`,
 `native/falcon_mzml.cc`) on synthetic corpora of HCD-like spectra —
 the per-core parse+preprocess rates the README "Ingest" section quotes.
-Pure host benchmark — no TPU needed.  Usage::
+Pure host benchmark — no accelerator needed.  Usage::
 
     python benchmarks/ingest_bench.py [n_spectra]    # default 20_000
 

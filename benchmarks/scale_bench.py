@@ -13,20 +13,17 @@ Usage::
     python benchmarks/scale_bench.py run-config4   (config #4, 50k)
 
 ``gen-wideband`` puts EVERY precursor inside one 20 ppm window, so the
-whole corpus is a single precursor band — the beyond-HBM band regime.
-Since round 4 the default (auto) path handles it with the
-column-STREAMED exact banded scan (``ops/knn.py``; the former IVF
-switch-over traded eps-neighbor recall for memory, measured in
-``benchmarks/ivf_attrib3.py``).  ``run-wideband`` compares index
+whole corpus is a single precursor band — the beyond-device-memory band
+regime.  The default (auto) path handles it with the column-STREAMED
+exact banded scan (``ops/knn.py``).  ``run-wideband`` compares index
 choices there (``--ann_index ivf`` forces the index).  The
 sampled-recall quality pass is skipped for this corpus (the exact
-oracle over a full-corpus band is quadratic; the dedicated
-``ivf_attrib*.py`` scripts measure recall in this regime on a sampled
-oracle); CSV purity/completeness are still reported.
+oracle over a full-corpus band is quadratic); CSV purity/completeness
+are still reported.
 
 Corpora are cached under ``.bench_cache/`` (gitignored); ``run-*`` prints
 one JSON line with wall-clock, spectra/sec, and peak RSS, and logs the
-per-phase summary to stderr.  Results are recorded in README.md.
+per-phase summary to stderr.
 """
 
 import base64
@@ -120,8 +117,8 @@ def gen_corpus(fmt: str, n_files: int, per_file: int, name: str,
         if wideband:
             # Every precursor inside ONE 20 ppm window AND one charge:
             # the whole corpus is a single precursor band in a single
-            # charge bucket (the auto-IVF regime — the band's column
-            # window exceeds the banded scan's HBM budget).
+            # charge bucket (the band's column window exceeds one pass
+            # of the banded scan).
             kwargs["precursor_mz_range"] = (700.0, 700.0 * (1 + 18e-6))
             kwargs["precursor_classes"] = None
             kwargs["charges"] = (2,)

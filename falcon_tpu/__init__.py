@@ -1,9 +1,10 @@
-"""falcon-tpu: TPU-native large-scale MS/MS spectrum clustering.
+"""falcon-tpu: large-scale MS/MS spectrum clustering on an accelerator.
 
 A brand-new framework with the capabilities of falcon
 (https://github.com/bittremieux/falcon): it ingests mzML/mzXML/MGF peak
-files on the TPU VM host, preprocesses and L2-normalizes spectra, and
-clusters them on TPU.  Two similarity backends are provided behind one
+files on the host, preprocesses and L2-normalizes spectra, and
+clusters them on the device (an NVIDIA GPU; the CPU for tests).  Two
+similarity backends are provided behind one
 interface:
 
 - ``exact``: peak-matching cosine similarity (reference-faithful; cf.
@@ -12,8 +13,8 @@ interface:
   the same ``fcluster(..., "distance")`` semantics as the reference
   (``falcon/cluster/cluster.py:280-290``).
 - ``ann``: the published falcon algorithm — spectrum binning + MurmurHash3
-  feature hashing to low-dimensional dense vectors, a from-scratch TPU IVF
-  nearest-neighbor index (k-means coarse quantizer on the MXU, batched
+  feature hashing to low-dimensional dense vectors, a from-scratch IVF
+  nearest-neighbor index (k-means coarse quantizer on device, batched
   inner-product list scans with fused top-k), a precursor-tolerance-masked
   sparse distance matrix and density clustering.
 

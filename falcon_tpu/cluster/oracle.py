@@ -5,8 +5,8 @@ Reproduces the reference's ``cosine_fast`` (``falcon/cluster/similarity.py:
 fragment m/z tolerance form a cost matrix, the optimal bipartite assignment
 (Hungarian) selects the matching, the score is the clipped sum of positive
 selected products, and the match count is the number of positive selected
-pairs.  Used as the ground-truth for validating the TPU kernels (SURVEY.md
-§4: "The CPU exact-cosine path ... is the oracle for the TPU path").
+pairs.  Used as the ground-truth for validating the device kernels (SURVEY.md
+§4: the CPU exact-cosine path is the oracle for the accelerated path).
 """
 
 from typing import Tuple

@@ -6,7 +6,7 @@ including the ``config.ini`` file with CLI-over-file precedence,
 ``falcon/config.py:38-49``) and adds back the published-algorithm knobs the
 reference's README still documents (``eps``, ``low_dim``, ``n_probe``,
 ``n_neighbors``, ``n_neighbors_ann``; cf. reference ``README.md:101-117``)
-plus TPU-engine settings.
+plus device-engine settings.
 
 Implemented first-party on top of ``argparse`` (``configargparse`` is not a
 dependency of this framework): a ``config.ini`` in the working directory (or
@@ -76,7 +76,7 @@ class Config:
         self._parser = argparse.ArgumentParser(
             prog="falcon-tpu",
             description=(
-                "falcon-tpu: TPU-native spectrum clustering using nearest "
+                "falcon-tpu: accelerated spectrum clustering using nearest "
                 "neighbor searching\n"
                 "===============================================  "
                 "==================\n\n"
@@ -228,7 +228,7 @@ class Config:
             "intense peaks (default: %(default)s).",
         )
 
-        # TPU ENGINE / PUBLISHED-ALGORITHM KNOBS (new; cf. reference
+        # DEVICE ENGINE / PUBLISHED-ALGORITHM KNOBS (new; cf. reference
         # README.md:101-117 which documents eps/low_dim/n_probe/n_neighbors
         # for the published hashing+IVF+DBSCAN algorithm).
         p.add_argument(
@@ -304,7 +304,7 @@ class Config:
             type=str,
             choices=["auto", "brute", "ivf", "exact"],
             help="[ann backend] Nearest-neighbor index: 'brute' = hashed "
-            "banded matmul search, 'ivf' = TPU IVF (k-means coarse "
+            "banded matmul search, 'ivf' = IVF index (k-means coarse "
             "quantizer + n_probe list scans), 'auto' = ivf for very "
             "large charge buckets, 'exact' = hash-free banded "
             "peak-matching-cosine top-k (oracle path; recall@k = 1.0 by "
@@ -351,7 +351,7 @@ class Config:
             "--devices",
             default=None,
             type=int,
-            help="Number of TPU devices to shard clustering over "
+            help="Number of GPU devices to shard clustering over "
             "(default: all visible devices).",
         )
         p.add_argument(

@@ -7,7 +7,8 @@ min(#files, #cpus), reference ``falcon.py:267``), and the processed
 spectra are appended in 10k batches to per-charge datasets.
 
 This module deliberately imports no JAX so ingest worker processes never
-touch the TPU plugin (the chip is exclusive to the parent process).
+create a backend: the parent process is the one process on the card (a
+second JAX process would reserve its memory too).
 """
 
 import glob
@@ -310,7 +311,7 @@ def prepare_spectra(
                 range_budget=range_budget,
             ))
     else:
-        # spawn (not fork): the parent may hold a live TPU client.
+        # spawn (not fork): the parent may hold a live GPU client.
         ctx = multiprocessing.get_context("spawn")
         with ProcessPoolExecutor(
             max_workers=max_workers, mp_context=ctx

@@ -1,17 +1,22 @@
 """ctypes bindings for the first-party native host library.
 
 ``native/falcon_native.cc`` provides the sequential host-side algorithms
-that have no efficient TPU mapping (SURVEY.md §2.3): nearest-neighbor-chain
-agglomerative linkage (replacing fastcluster), distance-threshold tree cuts
+that have no efficient data-parallel device mapping (SURVEY.md §2.3):
+nearest-neighbor-chain agglomerative linkage (replacing fastcluster),
+distance-threshold tree cuts
 (replacing ``scipy.cluster.hierarchy.fcluster``), and union-find connected
 components for density clustering.
 
-The shared library is built on demand with ``make -C native`` on first use;
-if the toolchain is unavailable, a SciPy fallback keeps the pipeline
-functional (used only as a fallback — the native path is the product).
+The shared library is built from the sources in the tree with
+``make -C native`` on first use (and again whenever a source is newer than
+it), so ``-march=native`` always targets the host that runs it; if the
+toolchain is unavailable, a SciPy fallback keeps the pipeline functional
+(used only as a fallback — the native path is the product).
 """
 
 import ctypes
+import fcntl
+import glob
 import logging
 import os
 import subprocess
@@ -32,13 +37,37 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
+def _stale() -> bool:
+    """True when the library is missing or older than a source file."""
+    if not os.path.isfile(_LIB_PATH):
+        return True
+    sources = glob.glob(os.path.join(_NATIVE_DIR, "*.cc")) + glob.glob(
+        os.path.join(_NATIVE_DIR, "*.h")) + [
+            os.path.join(_NATIVE_DIR, "Makefile")]
+    newest = max(os.path.getmtime(f) for f in sources if os.path.isfile(f))
+    return os.path.getmtime(_LIB_PATH) < newest
+
+
 def _build() -> bool:
+    """Build the library if stale.  Concurrent processes (test workers,
+    ingest pools) serialize on a file lock, and the library is compiled
+    under a private name and renamed into place, so no process ever
+    loads a half-written file."""
     try:
-        subprocess.run(
-            ["make", "-C", _NATIVE_DIR],
-            check=True,
-            capture_output=True,
-        )
+        with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not _stale():
+                return True
+            tmp = f".libfalcon_native.{os.getpid()}.so"
+            try:
+                subprocess.run(
+                    ["make", "-C", _NATIVE_DIR, f"TARGET={tmp}"],
+                    check=True, capture_output=True,
+                )
+                os.replace(os.path.join(_NATIVE_DIR, tmp), _LIB_PATH)
+            finally:
+                if os.path.exists(os.path.join(_NATIVE_DIR, tmp)):
+                    os.remove(os.path.join(_NATIVE_DIR, tmp))
         return True
     except (OSError, subprocess.CalledProcessError) as e:
         logger.warning("Could not build native library: %s", e)
@@ -53,7 +82,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
     with _lib_lock:
         if _lib is not None:
             return _lib or None
-        if not os.path.isfile(_LIB_PATH) and not _build():
+        if _stale() and not _build():
             _lib = False
             return None
         lib = ctypes.CDLL(_LIB_PATH)
@@ -470,7 +499,7 @@ def _u32_col(col) -> Optional[Tuple[np.ndarray, int]]:
 def _export_threads() -> int:
     """Worker threads for the export kernels (natsort + CSV format).
     Defaults to the host's core count (the 25M-export tail is the one
-    single-threaded stretch left on a multicore TPU-VM host); capped at
+    single-threaded stretch left on a multicore host); capped at
     16 — the kernels saturate memory bandwidth well before that.
     FALCON_TPU_EXPORT_THREADS overrides."""
     try:

@@ -9,7 +9,7 @@ members survive, and each surviving bin becomes one consensus peak at
 the intensity-weighted mean m/z with the member-averaged intensity
 (L2-renormalized, capped at ``max_peaks``).
 
-TPU-native plan: the whole aggregation for a charge bucket is ONE jitted
+Device plan: the whole aggregation for a charge bucket is ONE jitted
 dispatch — a multi-key ``lax.sort`` over (cluster*n_bins + bin, member)
 composite keys followed by run-boundary detection and scatter-add
 segment sums.  The host only reshapes the compact per-bin table into

@@ -1,7 +1,7 @@
-"""Density clustering (DBSCAN) as TPU label propagation.
+"""Density clustering (DBSCAN) as device label propagation.
 
 The published falcon algorithm runs DBSCAN over the sparse k-NN distance
-matrix (reference ``README.md:132-142``).  TPU-native design: core-point
+matrix (reference ``README.md:132-142``).  Device design: core-point
 detection and the connected components of the core-core eps-graph run
 entirely on device — components via iterative min-label propagation over
 the (n, k) neighbor lists (gather for out-edges, scatter-min for
@@ -9,7 +9,7 @@ in-edges, so the asymmetric top-k lists behave as an undirected graph),
 a ``lax.while_loop`` until fixpoint.  The host fetches three compact
 arrays (component label, core flag, best-core-neighbor id — a few MB at
 n = millions) instead of the full similarity/neighbor matrices
-(hundreds of MB), which matters at ~16 MB/s device->host readback.
+(hundreds of MB).
 
 Semantics match the host reference implementation exactly
 (tests/test_density.py): core = >= min_samples points within eps

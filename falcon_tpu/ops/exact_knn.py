@@ -8,24 +8,18 @@ cosine by construction.
 
 Status: ALTERNATIVE / VERIFICATION backend, reachable via
 ``--ann_index exact`` (the ann engine then skips hashing, prefilter,
-and rerank and feeds these exact scores straight to DBSCAN).  Measured
-on a v5e chip (25k spectra, 128-wide bands), the per-row Pallas panel
-variant ran ~1.7x slower than the XLA gather rerank it would replace,
-so the production default in ``cluster/ann_engine.py`` remains the
+and rerank and feeds these exact scores straight to DBSCAN).  The
+production default in ``cluster/ann_engine.py`` remains the
 tolerance-spread upper-bound prefilter + gather rerank
 (label-identical to exhaustive exact scoring, tests/test_ann.py) —
 this module is the hash-free oracle path and a correctness cross-check
 for it.
 
 Banding: spectra are sorted by precursor m/z, so row i's candidates live
-in a contiguous window.  Per-row column windows are expressed with a
-scalar-prefetched Pallas index map — ``col_block(i, j) = starts[i] + j``
-— so one compiled kernel serves every row, and the panel width is the
-power-of-two envelope of the widest band (tile-aligned), NOT of a whole
-row block: typically 2 tiles of 128 columns at proteomics tolerances.
-
-On CPU (tests) the same contract is served by the XLA gather path with
-the full window as the candidate list.
+in a contiguous window starting at column tile ``starts[i]``; the panel
+width is the power-of-two envelope of the widest band (tile-aligned),
+NOT of a whole row block.  Each row's window is scored with the chunked
+gather machinery of ``ops/rerank.py`` (plain XLA).
 """
 
 import functools
@@ -123,7 +117,6 @@ def exact_banded_topk(
     rts: Optional[np.ndarray] = None,
     rt_tol: Optional[float] = None,
     min_matches: int = 0,
-    backend: Optional[str] = None,
 ) -> Tuple:
     """Exact top-k neighbors within the precursor band.
 
@@ -137,7 +130,6 @@ def exact_banded_topk(
     import jax
     import jax.numpy as jnp
 
-    from . import pairwise
     from .knn import _merge_topk
 
     global _POSTLUDE
@@ -146,20 +138,18 @@ def exact_banded_topk(
     starts, window = window_layout(mzs, tol_mass, tol_mode, n_pad)
     k = int(min(k, window))
     tol_is_da = tol_mode == "Da"
-    if backend is None:
-        backend = "pallas" if pairwise.use_pallas() else "xla"
     with_matches = min_matches > 0
 
     # Column-pass streaming (SURVEY §5-g; round-4 verdict item 5): a
     # band wider than one sub-window is covered by PASSES over adjacent
     # column sub-windows, each an ordinary-shaped panel + top-k
     # dispatch, merged by a separate top-k dispatch (_merge_topk, the
-    # proven-safe shape class — an in-scan running merge faults the
-    # pooled worker, ops/knn.py:261-267).  Rows stream in blocks so the
+    # same pass structure as ops/knn.py).  Rows stream in blocks so the
     # resident (block_rows, sub_window) score panel — NOT the widest
-    # band — bounds HBM: the oracle path now runs at ANY band width,
-    # including the 500k one-band corpus whose (n_pad, n_pad) panel
-    # was guaranteed OOM before.
+    # band — bounds device memory: the oracle path runs at ANY band
+    # width, including a 500k one-band corpus whose (n_pad, n_pad)
+    # panel could not fit.  The 128 MB panel cap is inherited from a
+    # 16 GB device; not measured on the H100.
     sub_window = window
     block_rows = min(n_pad, int(_os.environ.get(
         "FALCON_TPU_EXACT_BLOCK_ROWS", "4096")))
@@ -204,19 +194,11 @@ def exact_banded_topk(
         acc_s = acc_i = None
         for pss in range(n_passes):
             st_pass = st_block + jnp.int32(pss * tile_shift)
-            if backend.startswith("pallas"):
-                scores, matches = _banded_panel_pallas(
-                    mz_rows, int_rows, mz_pad_dev, int_pad_dev,
-                    st_pass, sub_window, float(fragment_tol),
-                    int(rounds), with_matches,
-                    interpret=backend == "pallas_interpret",
-                )
-            else:
-                scores, matches = _banded_panel_xla(
-                    mz_rows, int_rows, mz_pad_dev, int_pad_dev,
-                    st_pass, sub_window, float(fragment_tol),
-                    int(rounds), with_matches,
-                )
+            scores, matches = _banded_panel(
+                mz_rows, int_rows, mz_pad_dev, int_pad_dev,
+                st_pass, sub_window, float(fragment_tol),
+                int(rounds), with_matches,
+            )
             s_g, i_g = _POSTLUDE(
                 scores,
                 matches if with_matches else scores,
@@ -240,82 +222,11 @@ def exact_banded_topk(
     return jnp.concatenate(parts_s), jnp.concatenate(parts_i)
 
 
-def _banded_panel_pallas(mz_rows, int_rows, mz_pool, int_pool, starts,
-                         window, fragment_tol, rounds, with_matches,
-                         interpret=False):
-    """(n_rows, window) exact scores via the Pallas panel kernel with a
-    scalar-prefetched per-row column-window index map.  ``mz_rows`` /
-    ``int_rows`` are a row block; columns gather from the full
-    ``mz_pool`` / ``int_pool`` via the per-row window starts."""
-    import jax
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from .pairwise import _pair_panel_kernel, _VMEM_LIMIT
-
-    n_rows, p = mz_rows.shape
-    tile = COL_TILE
-    n_tiles = window // tile
-    grid = (n_rows, n_tiles)
-    impl = functools.partial(
-        _pair_panel_kernel,
-        fragment_tol=float(fragment_tol),
-        rounds=int(rounds),
-        upper_only=False,
-        tile_j=tile,
-        sub=16,
-        early_exit=True,
-    )
-    # ``st_ref`` (the scalar-prefetched window starts) doubles as the
-    # kernel's row_off operand; the kernel ignores it with
-    # upper_only=False (only the index maps consume it).
-    if with_matches:
-        def kernel(st_ref, mzi, inti, mzj, intj, score_ref, match_ref):
-            impl(st_ref, mzi, inti, mzj, intj, score_ref, match_ref)
-    else:
-        def kernel(st_ref, mzi, inti, mzj, intj, score_ref):
-            impl(st_ref, mzi, inti, mzj, intj, score_ref, None)
-
-    out_spec = pl.BlockSpec((1, tile, 1), lambda i, j, st: (i, j, 0))
-    score_shape = jax.ShapeDtypeStruct((n_rows, window, 1), jnp.float32)
-    match_shape = jax.ShapeDtypeStruct((n_rows, window, 1), jnp.int32)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, p, 1), lambda i, j, st: (i, 0, 0)),
-            pl.BlockSpec((1, p, 1), lambda i, j, st: (i, 0, 0)),
-            pl.BlockSpec((tile, p), lambda i, j, st: (st[i] + j, 0)),
-            pl.BlockSpec((tile, p), lambda i, j, st: (st[i] + j, 0)),
-        ],
-        out_specs=(
-            [out_spec, out_spec] if with_matches else [out_spec]
-        ),
-    )
-    outs = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=(
-            [score_shape, match_shape] if with_matches else [score_shape]
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=_VMEM_LIMIT,
-        ),
-        interpret=interpret,
-    )(
-        starts.astype(jnp.int32),
-        mz_rows[:, :, None], int_rows[:, :, None], mz_pool, int_pool,
-    )
-    scores = outs[0][:, :, 0]
-    matches = outs[1][:, :, 0] if with_matches else None
-    return scores, matches
-
-
-def _banded_panel_xla(mz_rows, int_rows, mz_pool, int_pool, starts,
-                      window, fragment_tol, rounds, with_matches):
-    """XLA fallback (CPU tests): same (n_rows, window) score layout via
-    the chunked gather machinery of ``ops/rerank.py``."""
+def _banded_panel(mz_rows, int_rows, mz_pool, int_pool, starts,
+                 window, fragment_tol, rounds, with_matches):
+    """(n_rows, window) exact scores of each row against its column
+    window (``starts`` in tiles), via the chunked gather machinery of
+    ``ops/rerank.py``."""
     import jax
     import jax.numpy as jnp
 

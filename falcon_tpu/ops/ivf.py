@@ -1,10 +1,10 @@
-"""From-scratch TPU IVF (inverted file) nearest-neighbor index.
+"""From-scratch IVF (inverted file) nearest-neighbor index.
 
 Replaces the reference's per-bucket Faiss IVF index (published algorithm,
 reference ``README.md:132-142``; Faiss survives in the snapshot only as
 dead code, ``falcon/cluster/spectrum.py:5``).  Design:
 
-- **Coarse quantizer**: spherical k-means trained on the MXU — assignment
+- **Coarse quantizer**: spherical k-means trained on device — assignment
   is an argmax over ``V @ C.T`` inner products, the update is a
   segment-sum + renormalize.  Seeded and deterministic (SURVEY.md §4:
   the IVF path introduces k-means randomness that must be reproducible).
@@ -15,14 +15,12 @@ dead code, ``falcon/cluster/spectrum.py:5``).  Design:
   ``(n_lists, lb, D)`` tensor (every list padded to the same power-of-
   two slab).  Probing list P from list L is then ONE block index — the
   gather moves whole (lb, D) slabs, which is bandwidth-shaped, unlike
-  row gathers (measured ~1000x slower per element on TPU).
+  row gathers.
 - **Query**: every query in list L probes L's ``n_probe``
   centroid-nearest lists (the quantized-query probe).  The search scans
   CHUNKS of lists; each step block-gathers the chunk's probe slabs and
-  runs one big ``einsum`` + fused top-k on the MXU.  Chunking matters
-  on this backend, where per-scan-step overhead dominates small steps:
-  a per-(list, probe) step formulation was measured 30x slower at
-  identical FLOPs.
+  runs one big ``einsum`` + fused top-k.  Chunking keeps per-scan-step
+  overhead from dominating small steps.
 
 Self-search (the engine's case: queries == corpus) uses the 3-D layout
 as the query tensor directly; external queries are assigned, packed
@@ -31,19 +29,14 @@ into the same per-list layout (one gather), searched, and unpacked.
 Precursor-tolerance masking composes at query time exactly like the
 banded brute-force path (``ops/knn.py``).
 
-MEASURED STATUS on the target backend: the banded MXU scan
-(``ops/knn.py``) sustains ~PFLOP/s effective throughput and beat this
-index at every tested configuration (up to 50k-row precursor bands at
-250k spectra), because the index's FLOP savings are outweighed by its
-layout overheads (block gathers, probe bookkeeping).  The engine
-therefore ALWAYS auto-selects the banded scan — bands wider than one
-column window are covered by merged column passes
-(``ops/knn.py:261-342``) in bounded memory, so there is no regime left
-where auto-selection prefers this index.  It stays available via
-``--ann_index ivf`` as the published-algorithm compatibility surface
-(measured eps-neighbor recall@50 ~0.72 at n_probe=32 on wideband data,
-root-caused to hashed-embedding bin-split scatter;
-``benchmarks/ivf_attrib3.py`` and README "Index selection").
+STATUS: the engine ALWAYS auto-selects the banded scan (``ops/knn.py``)
+— bands wider than one column window are covered by merged column
+passes in bounded memory, so there is no regime left where
+auto-selection prefers this index.  It stays available via
+``--ann_index ivf`` as the published-algorithm compatibility surface;
+its eps-neighbor recall is below the banded scan's (hashed-embedding
+bin splits scatter some eps pairs across lists).  Its speed on the H100
+is not measured.
 
 """
 
@@ -63,7 +56,7 @@ NEG = jnp.float32(-2.0)
 @functools.partial(jax.jit, static_argnames=("n_lists",))
 def _kmeans_step(vectors: jnp.ndarray, centroids: jnp.ndarray,
                  n_lists: int) -> jnp.ndarray:
-    """One spherical-k-means Lloyd iteration on the MXU."""
+    """One spherical-k-means Lloyd iteration on device."""
     sims = jnp.dot(vectors, centroids.T,
                    preferred_element_type=jnp.float32)
     assign = jnp.argmax(sims, axis=1)
@@ -81,10 +74,10 @@ def _kmeans_fit(
 ) -> jnp.ndarray:
     """Spherical k-means: a Python loop over ONE jitted Lloyd step.
 
-    Deliberately NOT a ``lax.scan``: the scanned form was measured at
-    5+ minutes of XLA compile on the remote-compile TPU backend, while
-    the single step compiles in seconds and is dispatched n_iters times
-    (async, so dispatch latency overlaps execution).
+    Deliberately NOT a ``lax.scan``: the single step compiles in seconds
+    and is dispatched n_iters times (async, so dispatch latency overlaps
+    execution), where the scanned form compiled for minutes on the
+    device this code was first built for.
     """
     centroids = init
     for _ in range(n_iters):
@@ -222,8 +215,6 @@ class IVFIndex:
         rerank re-scores the survivors (the returned similarities are
         then bounds, not cosines).
         """
-        from .xfer import device_put_chunked
-
         # ``vectors`` may carry padded zero rows past len(precursor_mzs)
         # (the engines keep device arrays at power-of-two row counts);
         # only the first n rows are indexed.
@@ -236,7 +227,7 @@ class IVFIndex:
         self.n_lists = 1 << max(0, int(min(n_lists, n)).bit_length() - 1)
         rng = np.random.default_rng(seed)
         if isinstance(vectors, np.ndarray):
-            vectors_dev = device_put_chunked(
+            vectors_dev = jax.device_put(
                 np.ascontiguousarray(vectors, dtype=np.float32)
             )
         else:
@@ -244,7 +235,7 @@ class IVFIndex:
         if coarse_vectors is None:
             coarse_dev = vectors_dev
         elif isinstance(coarse_vectors, np.ndarray):
-            coarse_dev = device_put_chunked(
+            coarse_dev = jax.device_put(
                 np.ascontiguousarray(coarse_vectors, dtype=np.float32)
             )
         else:
@@ -326,7 +317,7 @@ class IVFIndex:
         self._query3d = None
         if rank_vectors is not None:
             if isinstance(rank_vectors, np.ndarray):
-                rank_dev = device_put_chunked(
+                rank_dev = jax.device_put(
                     np.ascontiguousarray(rank_vectors, dtype=np.float32)
                 )
             else:
@@ -419,9 +410,7 @@ class IVFIndex:
             qlb = lb
         else:
             if isinstance(q_vec, np.ndarray):
-                from .xfer import device_put_chunked
-
-                q_vec_dev = device_put_chunked(
+                q_vec_dev = jax.device_put(
                     np.ascontiguousarray(q_vec, np.float32))
             else:
                 q_vec_dev = q_vec
@@ -434,9 +423,7 @@ class IVFIndex:
             q_assign_src = q_vec_dev
             if q_coarse is not None:
                 if isinstance(q_coarse, np.ndarray):
-                    from .xfer import device_put_chunked
-
-                    q_assign_src = device_put_chunked(
+                    q_assign_src = jax.device_put(
                         np.ascontiguousarray(q_coarse, np.float32))
                 else:
                     q_assign_src = q_coarse
@@ -569,8 +556,8 @@ def _chunk_scan(
     slabs and run one einsum + fused top-k.  Returns (scores, SLOT ids
     into the flattened (n_lists * lb) layout; -1 missing).
 
-    ``precise=False`` scans in bfloat16 (2x MXU rate; fine when an exact
-    rerank re-scores survivors); ``precise=True`` keeps float32 so the
+    ``precise=False`` scans in bfloat16 (half the memory traffic; fine
+    when an exact rerank re-scores survivors); ``precise=True`` keeps float32 so the
     ranking similarities are directly threshold-comparable.
     """
     n_lists = corpus3d.shape[0]
@@ -591,6 +578,8 @@ def _chunk_scan(
         sims = jnp.einsum(
             "cqd,cpbd->cqpb", q, slabs,
             preferred_element_type=jnp.float32,
+            # precise: eps-threshold consumers need f32, not TF32.
+            precision=jax.lax.Precision.HIGHEST if precise else None,
         )
         diff = qm[:, :, None, None] - smz[:, None, :, :]
         if tol_is_da:

@@ -1,11 +1,12 @@
 """Peak-matching cosine similarity as vectorized XLA ops.
 
-TPU-native replacement for the reference's per-pair ``cosine_fast``
+Device replacement for the reference's per-pair ``cosine_fast``
 (``falcon/cluster/similarity.py:17-80``): the reference builds a banded
 cost matrix of intensity products for peaks within the fragment m/z
 tolerance and solves an optimal bipartite assignment (Hungarian, via
 ``scipy.optimize.linear_sum_assignment`` in numba objmode).  The Hungarian
-solve is inherently sequential and unsuitable for the MXU/VPU, so we use
+solve is inherently sequential and maps badly onto a data-parallel
+device, so we use
 **iterative locally-dominant matching**: each round simultaneously selects
 every pair (p, q) whose weight is both its row maximum and its column
 maximum (a "locally dominant" pair — greedy-safe: the globally maximal
@@ -21,7 +22,7 @@ so padded entries can never be within tolerance of a real peak and never
 contribute weight.
 
 Ties are broken toward the lowest index via a first-occurrence cumulative
-mask (no gathers — everything is VPU-friendly max/cumsum/compare), which
+mask (no gathers — everything is elementwise max/min/compare), which
 also guarantees at most one selection per row and per column so scores are
 never double-counted.
 """
@@ -39,7 +40,7 @@ def _first_true(mask: jnp.ndarray, axis: int) -> jnp.ndarray:
     """Keep only the first True along ``axis``.
 
     Implemented as an iota min-reduction (not a cumulative scan) so it maps
-    to a single VPU reduce inside Pallas kernels.
+    to a single reduction inside the Pallas kernel.
     """
     idx = jax.lax.broadcasted_iota(jnp.int32, mask.shape,
                                    axis % mask.ndim)
@@ -54,9 +55,10 @@ def match_rounds_body(w: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray,
 
     ``w``: (..., P, P) non-negative weights.  Returns (new_w, selected,
     cand): the surviving weights, the selected weights (same shape as
-    ``w``, zero where unselected), and the boolean selection mask.  All
-    intermediates stay >= 2-D so this body is reusable verbatim inside
-    Pallas TPU kernels (Mosaic cannot lay out rank-1 vectors).
+    ``w``, zero where unselected), and the boolean selection mask.  Only
+    max/min/sum reductions are used, so the body is reused verbatim by
+    the Pallas-Triton kernel (``ops/pairwise.py``), whose lowering has no
+    boolean any-reduction.
     """
     row_max = jnp.max(w, axis=-1, keepdims=True)
     col_max = jnp.max(w, axis=-2, keepdims=True)
@@ -67,9 +69,9 @@ def match_rounds_body(w: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray,
     cand = _first_true(cand, axis=-1)
     cand = _first_true(cand, axis=-2)
     selected = jnp.where(cand, w, 0.0)
-    # Remove matched rows and columns.
-    row_hit = jnp.any(cand, axis=-1, keepdims=True)
-    col_hit = jnp.any(cand, axis=-2, keepdims=True)
+    # Remove matched rows and columns (a selected weight is > 0).
+    row_hit = jnp.max(selected, axis=-1, keepdims=True) > 0
+    col_hit = jnp.max(selected, axis=-2, keepdims=True) > 0
     new_w = jnp.where(row_hit | col_hit, 0.0, w)
     return new_w, selected, cand
 
@@ -138,79 +140,3 @@ def pair_scores(
     """
     w = pair_weights(mz_a, int_a, mz_b, int_b, fragment_tol)
     return match_score(w, rounds)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("fragment_tol", "rounds", "pair_chunk")
-)
-def rect_scores_xla(
-    mz_a: jnp.ndarray,
-    int_a: jnp.ndarray,
-    mz_b: jnp.ndarray,
-    int_b: jnp.ndarray,
-    fragment_tol: float,
-    rounds: int = DEFAULT_ROUNDS,
-    pair_chunk: int = 4096,
-) -> jnp.ndarray:
-    """Rectangular (n_a, n_b) score matrix, chunked pure-XLA.
-
-    CPU-friendly counterpart of ``pairwise.panel_scores_pallas`` for
-    query-sample-vs-block scoring (used by the bench quality metrics).
-    """
-    n_a, p = mz_a.shape
-    n_b = mz_b.shape[0]
-    n_pairs = n_a * n_b
-    n_chunks = max(1, (n_pairs + pair_chunk - 1) // pair_chunk)
-    padded_pairs = n_chunks * pair_chunk
-    ii, jj = jnp.divmod(jnp.arange(padded_pairs) % n_pairs, n_b)
-
-    def chunk_fn(carry, idx):
-        del carry
-        ci, cj = ii[idx], jj[idx]
-        score, _ = pair_scores(
-            mz_a[ci], int_a[ci], mz_b[cj], int_b[cj],
-            fragment_tol, rounds,
-        )
-        return 0, score
-
-    idx = jnp.arange(padded_pairs).reshape(n_chunks, pair_chunk)
-    _, scores = jax.lax.scan(chunk_fn, 0, idx)
-    return scores.reshape(-1)[:n_pairs].reshape(n_a, n_b)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("fragment_tol", "rounds", "pair_chunk")
-)
-def block_scores_xla(
-    mz: jnp.ndarray,
-    intensity: jnp.ndarray,
-    fragment_tol: float,
-    rounds: int = DEFAULT_ROUNDS,
-    pair_chunk: int = 4096,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """All-pairs (n, n) score / match-count matrices for one block.
-
-    Pure-XLA fallback used on CPU (tests) and as the reference for the
-    Pallas kernel.  Pairs are processed in chunks to bound the (chunk, P,
-    P) intermediate.
-    """
-    n, p = mz.shape
-    n_pairs = n * n
-    n_chunks = max(1, (n_pairs + pair_chunk - 1) // pair_chunk)
-    padded_pairs = n_chunks * pair_chunk
-    ii, jj = jnp.divmod(jnp.arange(padded_pairs) % n_pairs, n)
-
-    def chunk_fn(carry, idx):
-        del carry
-        ci, cj = ii[idx], jj[idx]
-        score, matches = pair_scores(
-            mz[ci], intensity[ci], mz[cj], intensity[cj],
-            fragment_tol, rounds,
-        )
-        return 0, (score, matches)
-
-    idx = jnp.arange(padded_pairs).reshape(n_chunks, pair_chunk)
-    _, (scores, matches) = jax.lax.scan(chunk_fn, 0, idx)
-    scores = scores.reshape(-1)[:n_pairs].reshape(n, n)
-    matches = matches.reshape(-1)[:n_pairs].reshape(n, n)
-    return scores, matches

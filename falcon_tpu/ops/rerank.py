@@ -3,7 +3,7 @@
 The published falcon algorithm builds its sparse distance matrix from
 *hashed-vector* inner products (reference ``README.md:132-142``), which
 bounds NN recall by the fidelity of the 400-dim feature hash.  falcon-tpu
-adds a TPU-friendly refinement the reference never had: the hashed k-NN
+adds a device refinement the reference never had: the hashed k-NN
 stage over-retrieves ``n_neighbors_ann`` candidates, and this module
 re-scores every (query, candidate) pair with the *exact* peak-matching
 cosine (``ops/matching.py``, the same kernel the exact backend uses),

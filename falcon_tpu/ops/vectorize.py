@@ -7,10 +7,10 @@ bin is mapped to one output dimension by MurmurHash3 (``ops/hashing.py``),
 intensities of peaks hashing to the same dimension accumulate, and the
 resulting dense vector is L2-normalized for inner-product search.
 
-The hot path is a one-hot matmul on the MXU: the padded (n, P) peak
-arrays expand to per-peak hashed dimensions, and a scatter-add builds
-(n, low_dim_padded) vectors directly in HBM.  ``low_dim`` is padded to a
-lane multiple (128) so downstream matmuls tile cleanly.
+The hot path is a device scatter-add: the padded (n, P) peak arrays
+expand to per-peak hashed dimensions, and a scatter-add builds
+(n, low_dim_padded) vectors directly in device memory.  ``low_dim`` is
+padded to a multiple of 128 so downstream matmuls tile cleanly.
 """
 
 import functools

@@ -4,7 +4,7 @@ The reference is a single-node CPU tool with zero distributed
 communication (SURVEY.md §2.4); its data layout nevertheless dictates the
 multi-chip strategy: charge buckets and precursor-m/z intervals are
 embarrassingly parallel, and *within* a large interval the work is
-all-pairs/all-neighbors over row panels.  The TPU-native plan implemented
+all-pairs/all-neighbors over row panels.  The plan implemented
 here:
 
 - a 1-D device mesh over the ``spectra`` axis (data parallelism over

@@ -14,10 +14,10 @@ pattern).  At ring step ``s`` a device holds corpus block
 fall inside that block; a running top-k merges the partial results, so
 after N steps every query has seen all ``n_probe`` of its lists exactly
 once.  Communication is the corpus slab moving once around the ring —
-O(corpus / N) per step per device, all over ICI; per-device working set
-is its query shard plus one rotating corpus shard (plus the score
-chunk), which is how list counts beyond one chip's HBM scale onto a
-v5e-8 (round-3 verdict #3).
+O(corpus / N) per step per device over the device interconnect;
+per-device working set is its query shard plus one rotating corpus
+shard (plus the score chunk), which is how list counts beyond one
+device's memory scale onto several.
 
 The index itself is still BUILT on the default device and resharded by
 ``device_put`` — sharding the k-means/build phase is not needed until
@@ -105,6 +105,8 @@ def ivf_search_sharded(
                 sims = jnp.einsum(
                     "cqd,cpbd->cqpb", qq, slabs.astype(scan_dtype),
                     preferred_element_type=jnp.float32,
+                    precision=(jax.lax.Precision.HIGHEST
+                               if scan_dtype == jnp.float32 else None),
                 )
                 diff = qqm[:, :, None, None] - smz[:, None, :, :]
                 if tol_is_da:

@@ -79,7 +79,8 @@ def _local_banded_topk(
         q_mz = jax.lax.dynamic_slice_in_dim(mzs, r0, block_rows)
         c = jax.lax.dynamic_slice_in_dim(cols, c0, window)
         c_mz = jax.lax.dynamic_slice_in_dim(col_mz, c0, window)
-        sims = jnp.dot(q, c.T, preferred_element_type=jnp.float32)
+        sims = jnp.dot(q, c.T, preferred_element_type=jnp.float32,
+                       precision=jax.lax.Precision.HIGHEST)
         diff = q_mz[:, None] - c_mz[None, :]
         if tol_is_da:
             mass_diff = jnp.abs(diff)

@@ -5,7 +5,7 @@ module runs the complete device chain of ``cluster/ann_engine.py`` —
 vectorize -> banded k-NN -> exact rerank -> DBSCAN label propagation —
 as ONE jitted ``shard_map`` over a ``spectra`` row mesh, plus a sharded
 medoid-score reduction.  The reference has no distributed anything
-(SURVEY.md §2.4); the TPU-native design principles:
+(SURVEY.md §2.4); the design principles:
 
 - rows (spectra, sorted by precursor m/z) are the shard axis; all
   per-row work (vectorize, rerank scoring, core detection) is local;
@@ -344,7 +344,8 @@ def sharded_medoid_scores(
             sums = jnp.zeros((n_seg_pad, v.shape[1]), jnp.float32)
             sums = sums.at[seg_local].add(v)
             sums = jax.lax.psum(sums, axis)
-            return jnp.einsum("nd,nd->n", v, sums[seg_local])
+            return jnp.einsum("nd,nd->n", v, sums[seg_local],
+                              precision=jax.lax.Precision.HIGHEST)
 
         fn = jax.jit(
             jax.shard_map(

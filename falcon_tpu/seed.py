@@ -3,7 +3,7 @@
 Mirrors the reference's behavior of seeding ``random`` and ``numpy`` with 42
 at driver import time (reference ``falcon/seed.py:6-8``, call site
 ``falcon/falcon.py:30``).  Additionally returns a ``jax.random`` key so the
-TPU k-means / IVF path is reproducible as well (the reference's live
+device k-means / IVF path is reproducible as well (the reference's live
 pipeline is deterministic; the published IVF algorithm introduces k-means
 randomness that we must seed, cf. SURVEY.md §4).
 """

@@ -23,7 +23,7 @@ Layout::
 
 Ragged peak arrays are stored flat + offsets so reads are zero-copy
 (``np.load(mmap_mode='r')``) and convert directly to the padded
-``(n, max_peaks)`` device layout used by the TPU kernels.
+``(n, max_peaks)`` device layout used by the device kernels.
 """
 
 import json

@@ -444,8 +444,8 @@ inline void run_chunked(int t, const std::function<void(int)>& task) {
 // worker threads and stably merges pairwise (left before right, so the
 // order is IDENTICAL to the single-threaded sort — parity enforced by
 // tests/test_utils.py with a forced thread count); the 1-CPU dev box
-// can only verify correctness, the speedup is for multicore TPU-VM
-// hosts.  Returns 0 on success.
+// can only verify correctness, the speedup is for multicore hosts.
+// Returns 0 on success.
 int fc_natsort_pairs_u32_impl(const uint32_t* data_a, int64_t width_a,
                          const uint32_t* data_b, int64_t width_b,
                          int64_t n, int64_t* order_out, int threads) {
@@ -759,7 +759,7 @@ int64_t fc_csv_format_rows_u32_impl(const uint32_t* fn_data, int64_t fn_width,
   };
   // Rows are independent: format contiguous chunks on worker threads
   // and concatenate in order (byte-identical to the serial pass; the
-  // speedup is for multicore TPU-VM hosts).
+  // speedup is for multicore hosts).
   int t = (threads <= 1 || n < (1 << 16))
               ? 1 : static_cast<int>(std::min<int64_t>(threads, n));
   std::vector<std::string> parts(t);

@@ -229,9 +229,11 @@ def test_engine_prefilter_matches_exhaustive_dbscan(processed_rows,
 
 
 def test_exact_banded_topk_backends(processed_rows):
-    """The exact banded search returns the true exact-cosine top-k,
-    identically from the Pallas (interpret) and XLA backends."""
+    """The exact banded search returns the true exact-cosine top-k: its
+    in-band scores equal the pair-panel kernel's (Triton, interpreted)
+    on the same pairs, and the Hungarian oracle's."""
     from falcon_tpu.cluster.oracle import cosine_exact
+    from falcon_tpu.ops import pairwise
     from falcon_tpu.ops.exact_knn import exact_banded_topk
     from falcon_tpu.ops.pairwise import PAD_MZ
 
@@ -249,15 +251,29 @@ def test_exact_banded_topk_backends(processed_rows):
     mz_pad[:n], int_pad[:n] = mz, intensity
     k = 8
     results = {}
-    for backend in ("xla", "pallas_interpret"):
-        sims, neigh = exact_banded_topk(
-            jnp.asarray(mz_pad), jnp.asarray(int_pad), pmz, 20.0, "ppm",
-            k, 0.05, backend=backend,
-        )
-        results[backend] = (np.asarray(sims)[:n], np.asarray(neigh)[:n])
-    np.testing.assert_allclose(
-        results["xla"][0], results["pallas_interpret"][0], atol=1e-5
+    sims, neigh = exact_banded_topk(
+        jnp.asarray(mz_pad), jnp.asarray(int_pad), pmz, 20.0, "ppm",
+        k, 0.05,
     )
+    results["xla"] = (np.asarray(sims)[:n], np.asarray(neigh)[:n])
+    # The kernel scores only the rows with a real band, against all
+    # columns; the banded top-k lists must read the same scores.
+    sims, neigh = results["xla"]
+    rows_k = np.flatnonzero((neigh >= 0).any(axis=1))[:16]
+    n_cols = 1 << max(4, int(n - 1).bit_length())
+    cols_mz = np.full((n_cols, mz.shape[1]), PAD_MZ, np.float32)
+    cols_int = np.zeros((n_cols, mz.shape[1]), np.float32)
+    cols_mz[:n], cols_int[:n] = mz, intensity
+    panel, _ = pairwise.panel_scores(
+        jnp.asarray(mz_pad[None, rows_k]), jnp.asarray(int_pad[None, rows_k]),
+        jnp.asarray(cols_mz[None]), jnp.asarray(cols_int[None]), 0.05,
+        rounds=4, backend="pallas_interpret",
+    )
+    panel = np.asarray(panel[0])
+    for r, i in enumerate(rows_k):
+        got = neigh[i] >= 0
+        np.testing.assert_allclose(
+            sims[i][got], panel[r][neigh[i][got]], atol=1e-5)
     # Oracle: exact matching cosine per pair within the band.
     sims, neigh = results["xla"]
     for i in range(0, n, 7):
@@ -850,12 +866,10 @@ def test_exact_banded_topk_column_streamed(processed_rows, monkeypatch):
     # Wide tolerance so the window spans several forced sub-windows.
     common = (jnp.asarray(mz_pad), jnp.asarray(int_pad), pmz, 500.0,
               "Da", k, 0.05)
-    sims_ref, neigh_ref = exact_banded_topk(*common, backend="xla",
-                                            min_matches=4)
+    sims_ref, neigh_ref = exact_banded_topk(*common, min_matches=4)
     monkeypatch.setenv("FALCON_TPU_EXACT_COL_CHUNK", "128")
     monkeypatch.setenv("FALCON_TPU_EXACT_BLOCK_ROWS", "128")
-    sims_mp, neigh_mp = exact_banded_topk(*common, backend="xla",
-                                          min_matches=4)
+    sims_mp, neigh_mp = exact_banded_topk(*common, min_matches=4)
     sims_ref, sims_mp = np.asarray(sims_ref)[:n], np.asarray(sims_mp)[:n]
     neigh_ref = np.asarray(neigh_ref)[:n]
     neigh_mp = np.asarray(neigh_mp)[:n]

@@ -2,8 +2,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
+import reference_impl
+
 from falcon_tpu.cluster.oracle import cosine_exact, condensed_distances_exact
-from falcon_tpu.ops.matching import pair_scores, block_scores_xla
+from falcon_tpu.ops.matching import pair_scores
 from falcon_tpu.ops import pairwise
 from falcon_tpu.preprocess import process_spectrum
 from falcon_tpu.simulate import make_clustered_spectra
@@ -76,10 +78,12 @@ def test_disjoint_spectra_score_zero():
 def test_block_scores_xla_vs_oracle(padded_dataset):
     mz, intensity, lengths = padded_dataset
     sub = 24
-    scores, matches = block_scores_xla(
-        jnp.asarray(mz[:sub]), jnp.asarray(intensity[:sub]), 0.05
+    block_mz = jnp.asarray(mz[None, :sub])
+    block_int = jnp.asarray(intensity[None, :sub])
+    scores, matches = pairwise.panel_scores_xla(
+        block_mz, block_int, block_mz, block_int, 0.05
     )
-    scores = np.asarray(scores)
+    scores = np.asarray(scores[0])
     exact = condensed_distances_exact(
         mz[:sub], intensity[:sub], lengths[:sub], 0.05, 0
     )
@@ -90,8 +94,8 @@ def test_block_scores_xla_vs_oracle(padded_dataset):
 
 
 def test_condensed_distances_pallas_interpret(padded_dataset):
-    """The Pallas kernel (interpreter mode on CPU) must agree with the
-    Hungarian oracle and honor min_matches semantics."""
+    """The Pallas-Triton kernel (interpreter mode on CPU), streamed over
+    the upper triangle, must agree with the Hungarian oracle."""
     mz, intensity, lengths = padded_dataset
     sub = 40
     dist = pairwise.condensed_distances(
@@ -181,3 +185,117 @@ def test_adversarial_dense_cost_matrices_bound():
     # Measured worst-case deficit on fully-dense ambiguous matrices.
     # (README's accuracy claim is calibrated to this bound.)
     assert worst <= 0.05, worst
+
+
+def _reference_condensed(mz, intensity, lengths, min_matches):
+    """Condensed distances from the reference's own cosine_fast
+    (tests/reference_impl.py), with its min_matches rule."""
+    n = len(lengths)
+    out = []
+    for i in range(n):
+        for j in range(i + 1, n):
+            score, matched = reference_impl.cosine_fast(
+                mz[i][: lengths[i]], intensity[i][: lengths[i]],
+                mz[j][: lengths[j]], intensity[j][: lengths[j]], 0.05,
+            )
+            out.append(1.0 - (score if matched >= min_matches else 0.0))
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.parametrize("panel_rows", [8, 16, 64])
+@pytest.mark.parametrize("min_matches", [0, 6])
+def test_streamed_condensed_xla_vs_reference(padded_dataset, panel_rows,
+                                             min_matches):
+    """The XLA path streams row panels over the upper triangle (columns
+    from the panel's first row on); every panel size gives the
+    reference's condensed matrix."""
+    mz, intensity, lengths = padded_dataset
+    sub = 37  # not a multiple of any panel: a ragged last panel
+    dist = pairwise.condensed_distances(
+        mz[:sub], intensity[:sub], 0.05, min_matches=min_matches,
+        panel_rows=panel_rows, backend="xla",
+    )
+    ref = _reference_condensed(mz[:sub], intensity[:sub], lengths[:sub],
+                               min_matches)
+    np.testing.assert_allclose(dist, ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("upper_only", [False, True])
+@pytest.mark.parametrize("rows,cols", [(8, 32), (16, 16)])
+def test_panel_kernel_matches_xla(padded_dataset, upper_only, rows, cols):
+    """The Triton kernel (interpreted) and the XLA reference agree on
+    scores and match counts, including the zeroed below-diagonal part
+    of an upper-only panel."""
+    mz, intensity, _ = padded_dataset
+    args = (jnp.asarray(mz[None, :rows]), jnp.asarray(intensity[None, :rows]),
+            jnp.asarray(mz[None, :cols]), jnp.asarray(intensity[None, :cols]))
+    s_k, m_k = pairwise.panel_scores(*args, 0.05, upper_only=upper_only,
+                                     backend="pallas_interpret")
+    s_x, m_x = pairwise.panel_scores(*args, 0.05, upper_only=upper_only,
+                                     backend="xla")
+    np.testing.assert_allclose(np.asarray(s_k), np.asarray(s_x), atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(m_k), np.asarray(m_x))
+    if upper_only:
+        below = np.tril(np.ones((rows, cols), bool))
+        assert not np.asarray(s_k)[0][below].any()
+        assert np.asarray(s_k)[0][~below].any()
+
+
+def test_panel_kernel_pads_peaks_to_power_of_two(padded_dataset):
+    """P = 48 is padded to 64 for the kernel (Triton tensors have
+    power-of-two sides); the scores do not change."""
+    mz, intensity, _ = padded_dataset
+    assert (mz[:16, 48:] == pairwise.PAD_MZ).all()  # <= 48 real peaks
+    args = (jnp.asarray(mz[None, :16, :48]),
+            jnp.asarray(intensity[None, :16, :48]))
+    s_k, _ = pairwise.panel_scores(*args, *args, 0.05,
+                                   backend="pallas_interpret")
+    s_x, _ = pairwise.panel_scores(*args, *args, 0.05, backend="xla")
+    assert s_k.shape == (1, 16, 16)
+    np.testing.assert_allclose(np.asarray(s_k), np.asarray(s_x), atol=1e-6)
+
+
+def test_grouped_condensed_kernel_matches_oracle(padded_dataset):
+    """Small intervals bucketed into size classes and scored as one
+    batched upper-only panel through the kernel (interpreted)."""
+    mz, intensity, lengths = padded_dataset
+    bounds = [(0, 5), (5, 14), (14, 17), (17, 30)]
+    intervals = [(mz[a:b], intensity[a:b]) for a, b in bounds]
+    got = dict(pairwise.grouped_condensed_distances(
+        intervals, 0.05, backend="pallas_interpret"))
+    for idx, (a, b) in enumerate(bounds):
+        ref = condensed_distances_exact(mz[a:b], intensity[a:b],
+                                        lengths[a:b], 0.05, 0)
+        np.testing.assert_allclose(got[idx], ref, atol=1e-5)
+
+
+def test_panel_backend_follows_platform(monkeypatch):
+    """A GPU process selects the compiled kernel, any other platform
+    the XLA code; an unknown backend name is an error."""
+    import jax
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert pairwise.panel_impl() == "pallas"
+    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    assert pairwise.panel_impl() == "xla"
+    calls = []
+    monkeypatch.setattr(pairwise, "panel_scores_xla",
+                        lambda *a, **k: calls.append(a) or (None, None))
+    pairwise.panel_scores(*(np.zeros((1, 8, 64), np.float32),) * 4, 0.05)
+    assert len(calls) == 1
+    with pytest.raises(ValueError, match="unknown pair-panel backend"):
+        pairwise.panel_scores(*(np.zeros((1, 8, 64), np.float32),) * 4,
+                              0.05, backend="mosaic")
+
+
+@pytest.mark.gpu
+def test_panel_kernel_compiled_on_gpu(padded_dataset):
+    """On a GPU the default is the compiled kernel, equal to XLA."""
+    mz, intensity, _ = padded_dataset
+    args = (jnp.asarray(mz[None, :32]), jnp.asarray(intensity[None, :32]))
+    assert pairwise.panel_impl() == "pallas"
+    s_k, m_k = pairwise.panel_scores(*args, *args, 0.05, upper_only=True)
+    s_x, m_x = pairwise.panel_scores(*args, *args, 0.05, upper_only=True,
+                                     backend="xla")
+    np.testing.assert_allclose(np.asarray(s_k), np.asarray(s_x), atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(m_k), np.asarray(m_x))

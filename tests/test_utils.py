@@ -89,21 +89,6 @@ def test_native_natsort_pairs_random_parity():
     assert list(got_u32) == want_u32
 
 
-def test_device_put_chunked_roundtrip():
-    import numpy as np
-
-    from falcon_tpu.ops.xfer import device_put_chunked
-
-    rng = np.random.default_rng(0)
-    a = rng.normal(size=(1000, 700)).astype(np.float32)  # 2.8 MB
-    d = device_put_chunked(a, max_bytes=2**20)  # force 3 slabs
-    np.testing.assert_array_equal(np.asarray(d), a)
-    small = rng.normal(size=(4, 4)).astype(np.float32)
-    np.testing.assert_array_equal(
-        np.asarray(device_put_chunked(small)), small
-    )
-
-
 def test_upload_padded_peaks_matches_host_padding():
     import numpy as np
 
